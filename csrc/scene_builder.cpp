@@ -1,7 +1,7 @@
 // Native scene builder: C++ fast path for host-side scene construction.
 //
 // The reference builds its scene in host C++ (src/SimulationBox.cpp,
-// src/BacteriaBox.cpp); this library is the TPU framework's native
+// src/BacteriaBox.cpp); this library is the framework's native
 // equivalent, used for large scenes (thousands of cells, 100k+ waters)
 // where the NumPy path's per-throw Python loop dominates.  It reproduces
 // the Python implementation BIT FOR BIT: the same Threefry-2x32 streams

@@ -8,33 +8,29 @@ library code.  CLI equivalent:
     mri-t2-fit quickstart.csv --taucp 5.5
     mri-t2-plot quickstart.csv --num-water 4032 --out quickstart.png
 
-Runs the production Pallas engine on a TPU; on CPU it shrinks the run
-and uses the scan engine (bit-compatible physics, same code path as the
-cross-validation suite).
+Runs the production chunk kernel on a GPU; elsewhere it shrinks the run
+and uses the scan engine (same physics and random stream, the
+cross-validation suite's reference).
 """
-
-import os
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    # the TPU plugin in some environments presets the platform and
-    # ignores the env var; the config API wins pre-initialization
-    jax.config.update("jax_platforms", "cpu")
-
 from mri_nanoparticle_simulation_tpu.analysis import fit_t2, sample_at_echoes
+from mri_nanoparticle_simulation_tpu.engine.pallas_engine import \
+    choose_engine
 from mri_nanoparticle_simulation_tpu.engine.sim import SimulationRunner
 from mri_nanoparticle_simulation_tpu.params import Params
 
-ON_TPU = jax.default_backend() not in ("cpu",)
+ENGINE = choose_engine(anywhere=True)
+print(f"{ENGINE} engine on {jax.devices()[0].platform}")
 
 # Every parameters.h knob is a runtime field (params.py cites each
 # reference line).  The defaults ARE the reference configuration:
 # 4032 walkers, 270 cells, 30 um box, tau = 1 ns, 40 ms total.
-if ON_TPU:
-    # 4 ms (1/10 of the reference run) in a few seconds on one chip;
-    # totaltime=40, taucp=5.5 is the full reference run (~14 s wall).
-    # taucp shrinks with the run so echoes exist to fit.
+if ENGINE == "pallas":
+    # 4 ms (1/10 of the reference run); totaltime=40, taucp=5.5 is the
+    # full reference run.  taucp shrinks with the run so echoes exist
+    # to fit.
     params = Params(totaltime=4.0, taucp=0.5, sprint_steps=100_000,
                     chunk_steps=4000, near_k=6)
     runner = SimulationRunner(params, scene_seed=42, seed=0)

@@ -13,31 +13,25 @@ CLI equivalents:
     mri-t2-sim --sweep-grid "D=0.25,0.5,1;taucp=2.5,5.5,11" --paired \
         --fit-t2 surface.csv --out grid.csv
 
-Measured at full reference scale on one v5e (PLAN.md): 3 paired full
-runs + fitted R2(D) table in 91 s; the 9-point R2(D, taucp) surface in
-85-92 s.  This demo shrinks the problem to run anywhere.
+This demo shrinks the problem to run anywhere.
 """
 
-import os
-
 import jax
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from mri_nanoparticle_simulation_tpu.analysis import fit_t2, sample_at_echoes
 from mri_nanoparticle_simulation_tpu.parallel import (run_parameter_grid,
                                                       run_parameter_sweep)
+from mri_nanoparticle_simulation_tpu.engine.pallas_engine import \
+    choose_engine
 from mri_nanoparticle_simulation_tpu.params import Params
 
-ON_TPU = jax.default_backend() not in ("cpu",)
 params = Params(num_water=256, num_cells=32, bound=15.0,
                 water_start_bound=10.0, border=4.0, hash_dim=10,
                 totaltime=0.04, taucp=0.005, sprint_steps=10_000,
                 chunk_steps=1000, near_k=6, mmoment=3.5e-15)
-engine = "pallas" if ON_TPU else "scan"
+engine = choose_engine(anywhere=True)
+print(f"{engine} engine on {jax.devices()[0].platform}")
 # at reference scale: params = Params(sprint_steps=2_000_000,
 #     chunk_steps=4000, near_k=6) and engine="pallas"
 
@@ -54,8 +48,8 @@ for d, curve in zip((0.25, 0.5, 1.0), cos[:, 0]):
     print(f"  D scale {d:4.2f}: T2 = {f.t2_ms:6.3f} ms "
           f"(R^2 = {f.r_squared:.4f})")
 # at reference scale R2 rises monotonically with D (diffusion-limited
-# dephasing; PLAN.md's measured table: 25.5/36.5/52.3 per s) — at this
-# demo size expect visible Monte-Carlo noise on top of the trend
+# dephasing) — at this demo size expect visible Monte-Carlo noise on top
+# of the trend
 
 # --- 2. cross-product grid: the motional-narrowing surface -----------
 axes = {"D": [0.5, 1.0], "taucp": [0.005, 0.01]}

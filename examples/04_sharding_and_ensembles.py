@@ -2,16 +2,16 @@
 
 The reference is single-GPU; its multi-trial story was resubmitting PBS
 jobs (SURVEY §5).  Here walkers shard over a `jax.sharding.Mesh` with
-per-window magnetization `psum`med over ICI, trials map across mesh
-axes, and the two compose into the 2D (trials x walkers) pod layout —
+per-window magnetization `psum`med across devices, trials map across
+mesh axes, and the two compose into the 2D (trials x walkers) layout —
 all with GLOBAL Threefry lanes, so every layout produces bitwise the
 same physics as a single device (that is the tested contract, not an
 aspiration: see __graft_entry__.dryrun_multichip and
 tests/test_parallel.py).
 
-This demo runs on 8 VIRTUAL CPU devices so it works anywhere; on a TPU
-pod slice the same code runs unchanged over the real mesh.  Multi-HOST
-execution (one process per host over DCN) is the same API through
+This demo runs on 8 VIRTUAL CPU devices so it works anywhere; on a
+multi-GPU host the same code runs unchanged over the real mesh.
+Multi-HOST execution (one process per host) is the same API through
 parallel/distributed.py: initialize(), then run_simulation_multihost /
 run_ensemble_multihost / run_decomposition_multihost; a 2-process
 dry run is built into __graft_entry__.dryrun_multihost.
@@ -24,13 +24,6 @@ os.environ.setdefault("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in os.environ["XLA_FLAGS"]:
     os.environ["XLA_FLAGS"] += " --xla_force_host_platform_device_count=8"
 import jax
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    # check the env var BEFORE touching any backend: some TPU plugins
-    # preset the platform and ignore the env override, and the config
-    # API only wins while backends are uninitialized
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from mri_nanoparticle_simulation_tpu.engine import reference_engine
@@ -62,9 +55,9 @@ curve = cos_e.mean(axis=0) / params.num_water
 print(f"4-trial ensemble curve: m(t_end) = {curve[-1]:+.4f} "
       f"+- {cos_e[:, -1].std(ddof=1) / params.num_water:.4f}")
 
-# --- 3. the pod layout: trials x walker shards on one 2D mesh --------
+# --- 3. the 2D layout: trials x walker shards on one mesh ------------
 # trials across one mesh axis, each trial's walkers sharded over the
-# other (ICI-adjacent) axis; curves bitwise-equal to the trial-parallel
+# other axis; curves bitwise-equal to the trial-parallel
 # run (CLI: --ensemble 4 --walker-shards 2)
 _, cos_2d, _, _ = run_ensemble(params, n_trials=4, base_seed=0,
                                run_seed=100, walker_shards=2)

@@ -31,21 +31,17 @@ On real measured data the residual Monte-Carlo noise floor applies
 (tests/test_inverse.py pins the cross-seed case too).
 """
 
-import os
-
 import jax
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from mri_nanoparticle_simulation_tpu import analysis, inverse
+from mri_nanoparticle_simulation_tpu.engine.pallas_engine import \
+    choose_engine
 from mri_nanoparticle_simulation_tpu.params import small_test_params
 from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
 
-ON_TPU = jax.default_backend() not in ("cpu",)
-ENGINE = "pallas" if ON_TPU else "scan"   # the Pallas kernel needs a TPU
+ENGINE = choose_engine(anywhere=True)
+print(f"{ENGINE} engine on {jax.devices()[0].platform}")
 
 # A small configuration with a strong dephasing signal (mmoment ~1400x
 # the reference default scaled to the short window).

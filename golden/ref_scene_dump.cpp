@@ -4,7 +4,7 @@
  * Compiles the REFERENCE'S OWN host C++ (SimulationBox.cpp,
  * BacteriaBox.cpp, octree.cpp, xorshift.h — all CUDA-free; see
  * golden/build.sh) and drives it to emit machine-readable ground truth
- * for direct parity measurement against the TPU rebuild:
+ * for direct parity measurement against the JAX rebuild:
  *
  *   scene_mnps.csv    x,y,z,r,M of every MNP incl. periodic images
  *                     (apply_bcs_on_mnps, SimulationBox.cpp:348-527)

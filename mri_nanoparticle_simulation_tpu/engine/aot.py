@@ -1,14 +1,13 @@
 """AOT warm-start: skip trace+lower on repeat CLI runs.
 
 The reference pays nvcc at every parameter change (README.md:13); we pay
-jit once per process.  On the production configuration that cost is real:
-~3.5 s of client-side tracing + Mosaic kernel lowering per CLI invocation
-(measured r3), even when the XLA *compile* itself hits the persistent
-compilation cache.  This module caches the serialized compiled executable
-(jax.experimental.serialize_executable) keyed by everything that could
-change the program — engine source files, params, walker count, dtype,
-RNG implementation, jax version, device kind — so a repeat run
-deserializes and loads the binary directly, skipping tracing entirely.
+jit once per process: client-side tracing and the chunk kernel's lowering
+run on every CLI invocation, even when the XLA *compile* itself hits the
+persistent compilation cache.  This module caches the serialized compiled
+executable (jax.experimental.serialize_executable) keyed by everything
+that could change the program — engine source files, params, walker
+count, dtype, RNG implementation, jax version, device kind — so a repeat
+run deserializes and loads the binary directly, skipping tracing entirely.
 
 Scope: the single-device pallas production path only (no runtime
 tcp/cell_r overrides, no scene cache, no mesh).  Everything else falls
@@ -86,17 +85,24 @@ def _wrap_compiled(compiled):
     return sprint
 
 
+def _load(key: str):
+    """Deserialize the executable stored under ``key`` onto the default
+    device: both cached programs run on one device, and JAX would
+    otherwise bind a loaded executable to every local device."""
+    with open(_path(key), "rb") as f:
+        payload, in_tree, out_tree = pickle.load(f)
+    from jax.experimental.serialize_executable import deserialize_and_load
+    return deserialize_and_load(payload, in_tree, out_tree,
+                                execution_devices=jax.devices()[:1])
+
+
 def load_sprint(params: Params, num_water: int, n_mnp: int, dtype,
                 rng_impl: str):
     """Return a sprint-shaped callable backed by a cached executable, or
     None on any miss/incompatibility (caller uses the jit path)."""
     try:
-        with open(_path(_cache_key(params, num_water, n_mnp, dtype,
-                                   rng_impl)), "rb") as f:
-            payload, in_tree, out_tree = pickle.load(f)
-        from jax.experimental.serialize_executable import \
-            deserialize_and_load
-        compiled = deserialize_and_load(payload, in_tree, out_tree)
+        compiled = _load(_cache_key(params, num_water, n_mnp, dtype,
+                                    rng_impl))
     except Exception:
         return None
     return _wrap_compiled(compiled)
@@ -121,12 +127,8 @@ def load_ensemble_sprint(params: Params, n_trials: int, n_mnp: int,
     kwargs — tcp/cell_r/d_scale are per-trial ARRAYS here, part of the
     traced signature).  None on any miss; caller keeps its jit."""
     try:
-        with open(_path(_ensemble_key(params, n_trials, n_mnp, dtype,
-                                      rng_impl)), "rb") as f:
-            payload, in_tree, out_tree = pickle.load(f)
-        from jax.experimental.serialize_executable import \
-            deserialize_and_load
-        return deserialize_and_load(payload, in_tree, out_tree)
+        return _load(_ensemble_key(params, n_trials, n_mnp, dtype,
+                                   rng_impl))
     except Exception:
         return None
 

@@ -21,56 +21,17 @@ All functions are plain jnp and run unchanged inside Pallas kernels.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 #: unit conversion baked into the reference formula (octree.cpp:209)
 FIELD_SCALE = 1e11
 
 
-def bz_taylor_parts(dx, dy, dz, m_scaled):
-    """Value + gradient + Hessian contributions of ONE dipole at
-    displacement (dx, dy, dz) — the shared 10-accumulator body of the
-    Pallas recandidate kernels (engine/pallas_engine.py in-kernel
-    rebuild, fields/expansion.py far-sums and candidate-model kernels).
-
-    ``m_scaled`` is the moment PRE-multiplied by FIELD_SCALE (folded in
-    once at pack time).  Uses ``rsqrt``-based powers (the kernels' fast
-    path; the standalone closed forms above use exactly-rounded
-    1/sqrt-products instead).  r² is clamped at 1e-8 rather than
-    selected — an excluded dipole can sit at r ≈ 0 (walker inside its
-    cell) and the caller's exclusion mask zeroes the garbage value.
-
-    Returns (b0, gx, gy, gz, hxx, hyy, hzz, hxy, hxz, hyz).
-    """
-    r2 = dx * dx + dy * dy + dz * dz
-    r2 = jnp.maximum(r2, 1e-8)
-    inv_r = jax.lax.rsqrt(r2)
-    inv_r2 = inv_r * inv_r
-    inv_r5 = inv_r2 * inv_r2 * inv_r
-    inv_r7 = inv_r5 * inv_r2
-    dz2 = dz * dz
-    b0 = m_scaled * (3.0 * dz2 - r2) * inv_r5
-    u = r2 - 5.0 * dz2
-    v = 3.0 * r2 - 5.0 * dz2
-    m3r7 = 3.0 * m_scaled * inv_r7
-    u_r2 = 7.0 * u * inv_r2
-    return (b0,
-            m3r7 * dx * u, m3r7 * dy * u, m3r7 * dz * v,
-            m3r7 * (u + dx * dx * (2.0 - u_r2)),
-            m3r7 * (u + dy * dy * (2.0 - u_r2)),
-            m3r7 * (v - dz2 * (4.0 + 7.0 * v * inv_r2)),
-            m3r7 * dx * dy * (2.0 - u_r2),
-            m3r7 * dx * dz * (-8.0 - u_r2),
-            m3r7 * dy * dz * (-8.0 - u_r2))
-
-
 def dipole_bz(dx, dy, dz, M):
     """Unmasked dipole B_z (octree.cpp:206-210). Inputs broadcast."""
     r2 = dx * dx + dy * dy + dz * dz
     # 1/r^5 via sqrt+multiplies: exactly rounded ops, unlike transcendental
-    # pow (XLA CPU f64 pow(x, -2.5) shows ~1e-8 relative error), and cheaper
-    # on the TPU VPU.
+    # pow (XLA CPU f64 pow(x, -2.5) shows ~1e-8 relative error).
     inv_r5 = 1.0 / (r2 * r2 * jnp.sqrt(r2))
     return M * FIELD_SCALE * (2 * dz * dz - dx * dx - dy * dy) * inv_r5
 

@@ -1,6 +1,6 @@
 """Per-cube far-field Taylor tables — hierarchical far-field caching.
 
-This is the TPU answer to the *hierarchy* of the reference's adaptive
+This mirrors the *hierarchy* of the reference's adaptive
 octree (src/octree.cpp:262-297): the octree kept distant dipoles cheap by
 caching their summed B_z per leaf; here we cache, for every spatial cube
 of the selection lattice (fields/expansion.py ``build_cache``), a
@@ -28,8 +28,8 @@ Correctness structure (one exact partition, one controlled approximation):
 
 Coefficients are produced by nested ``jax.jacfwd`` over the closed-form
 dipole field (fields/dipole.py) — correct by construction at any order,
-no hand-derived high-order derivatives.  Built once per scene (~1 s for
-4096 cubes x 5000 dipoles at order 5 on a v5e; dipoles never move).
+no hand-derived high-order derivatives.  Built once per scene (dipoles
+never move).
 """
 
 from __future__ import annotations
@@ -134,17 +134,13 @@ def _build_far_table_jit(h: int, bound: float, order: int):
     return f
 
 
-def eval_far_table_parts(get_coeff, ex, ey, ez, order: int, accs=None):
-    """Core polynomial evaluation: value/gradient/Hessian of the
-    tabulated Taylor series at offsets (ex, ey, ez), accumulated into
-    ``accs`` (10-tuple, zeros when None).
+def eval_far_table(coeffs, e, order: int):
+    """Value, gradient and Hessian of the tabulated polynomial at offset
+    ``e`` ([W, 3], walker anchor minus cube center).
 
-    ``get_coeff(t)`` returns coefficient ``t`` broadcastable against the
-    offsets — ``coeffs[..., t]`` on the [W, n_coeffs] layout
-    (:func:`eval_far_table`), ``coeffs[t]`` on the plane layout inside
-    the fused candidate-model Pallas kernel
-    (fields/expansion._make_cand_model_kernel).  One body, two callers —
-    the monomial/derivative bookkeeping exists exactly once.
+    coeffs: [W, n_coeffs(order)] (already gathered per walker).
+    Returns (b0 [W], grad [W, 3], hess [W, 6] in xx,yy,zz,xy,xz,yz order)
+    — the same far-Taylor layout as expansion.NearField.
     """
     def pows(x):
         ps = [jnp.ones_like(x)]
@@ -152,13 +148,11 @@ def eval_far_table_parts(get_coeff, ex, ey, ez, order: int, accs=None):
             ps.append(ps[-1] * x)
         return ps
 
-    px, py, pz = pows(ex), pows(ey), pows(ez)
-    if accs is None:
-        z = jnp.zeros_like(ex)
-        accs = (z,) * 10
-    b0, gx, gy, gz, hxx, hyy, hzz, hxy, hxz, hyz = accs
+    px, py, pz = pows(e[..., 0]), pows(e[..., 1]), pows(e[..., 2])
+    z = jnp.zeros_like(e[..., 0])
+    b0, gx, gy, gz, hxx, hyy, hzz, hxy, hxz, hyz = (z,) * 10
     for t, (i, j, k) in enumerate(monomials(order)):
-        c = get_coeff(t)
+        c = coeffs[..., t]
         b0 = b0 + c * px[i] * py[j] * pz[k]
         if i:
             gx = gx + c * i * px[i - 1] * py[j] * pz[k]
@@ -178,18 +172,5 @@ def eval_far_table_parts(get_coeff, ex, ey, ez, order: int, accs=None):
             hxz = hxz + c * (i * k) * px[i - 1] * py[j] * pz[k - 1]
         if j and k:
             hyz = hyz + c * (j * k) * px[i] * py[j - 1] * pz[k - 1]
-    return (b0, gx, gy, gz, hxx, hyy, hzz, hxy, hxz, hyz)
-
-
-def eval_far_table(coeffs, e, order: int):
-    """Value, gradient and Hessian of the tabulated polynomial at offset
-    ``e`` ([W, 3], walker anchor minus cube center).
-
-    coeffs: [W, n_coeffs(order)] (already gathered per walker).
-    Returns (b0 [W], grad [W, 3], hess [W, 6] in xx,yy,zz,xy,xz,yz order)
-    — the same far-Taylor layout as expansion.NearField.
-    """
-    parts = eval_far_table_parts(lambda t: coeffs[..., t],
-                                 e[..., 0], e[..., 1], e[..., 2], order)
-    return (parts[0], jnp.stack(parts[1:4], -1),
-            jnp.stack(parts[4:10], -1))
+    return (b0, jnp.stack([gx, gy, gz], -1),
+            jnp.stack([hxx, hyy, hzz, hxy, hxz, hyz], -1))

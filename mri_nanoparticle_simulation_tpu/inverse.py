@@ -19,7 +19,7 @@ and acts as a constant of the differentiation, giving the pathwise
 ``scale`` is smooth and, with the same simulation seed as the target,
 exactly minimized at the true value.
 
-TPU-shaped: the ENTIRE optimization (every Adam iteration, each
+One device computation: the ENTIRE optimization (every Adam iteration, each
 containing a full forward simulation and its backward pass) is one
 `lax.scan` inside one jit — a single device computation, no host round
 trips.  Each sprint of the forward pass is wrapped in `jax.checkpoint`,
@@ -271,7 +271,7 @@ def make_engine_curve_fn(params: Params, scene, seed: int = 0,
     differentiable through Pallas, but every call shares one compiled
     program (``d_scale``/``cell_r`` are the kernel's launch scalars;
     ``m_scale`` multiplies the traced ``mnp_M`` array), and the
-    Threefry / hardware-PRNG streams depend only on (seed, step), so all
+    Threefry streams depend only on (seed, step), so all
     evaluations see identical random draws (common random numbers).
 
     ``cell_r`` overrides the residency radius on the FIXED scene (same
@@ -341,8 +341,8 @@ def fit_diffusion_scale_crn(target, params: Params, scene, *,
     Pallas kernel, but common random numbers (counter RNG keyed only by
     (seed, step)) make the loss a deterministic, noise-free function of
     d_scale, so a ~20-evaluation bracket search resolves the minimum to
-    ~1e-3 relative — each evaluation at the kernel's full 1.9e10
-    walker-steps/s.  The search runs on log(d) (scale parameters live on
+    ~1e-3 relative — each evaluation at the kernel's full speed.
+    The search runs on log(d) (scale parameters live on
     a ratio scale).
 
     The same coverage honesty note as :func:`fit_diffusion_scale`
@@ -356,14 +356,14 @@ def fit_diffusion_scale_crn(target, params: Params, scene, *,
     lo, hi = float(bracket[0]), float(bracket[1])
     if not (0 < lo < hi):
         raise ValueError(f"bracket must satisfy 0 < lo < hi; got {bracket}")
-    curve = make_engine_curve_fn(params, scene, seed=seed, engine=engine,
-                                 rng_impl=rng_impl, interpret=interpret,
-                                 dtype=dtype)
     target = np.asarray(target, np.float64)
     n = params.t // params.pfreq
     if target.shape != (n,):
         raise ValueError(f"target must have one value per output window "
                          f"([{n}]), got {target.shape}")
+    curve = make_engine_curve_fn(params, scene, seed=seed, engine=engine,
+                                 rng_impl=rng_impl, interpret=interpret,
+                                 dtype=dtype)
 
     hist_d, hist_l = [], []
 
@@ -447,14 +447,14 @@ def fit_cell_radius_crn(target, params: Params, scene, *,
             f"bracket top cell_r={hi} needs near_k >= {worst} on this "
             f"scene (configured {params.near_k}); raise near_k or lower "
             f"the bracket")
-    curve = make_engine_curve_fn(params, scene, seed=seed, engine=engine,
-                                 rng_impl=rng_impl, interpret=interpret,
-                                 dtype=dtype)
     target = np.asarray(target, np.float64)
     n = params.t // params.pfreq
     if target.shape != (n,):
         raise ValueError(f"target must have one value per output window "
                          f"([{n}]), got {target.shape}")
+    curve = make_engine_curve_fn(params, scene, seed=seed, engine=engine,
+                                 rng_impl=rng_impl, interpret=interpret,
+                                 dtype=dtype)
 
     hist_r, hist_l = [], []
 
@@ -508,14 +508,14 @@ def fit_permeability_crn(target, params: Params, scene, *,
     params.reflect_pair(hi)     # raises past the formula's validity bound
     if not (params.reflect_io > 0 or params.reflect_oi > 0):
         params = params.with_permeability()
-    curve = make_engine_curve_fn(params, scene, seed=seed, engine=engine,
-                                 rng_impl=rng_impl, interpret=interpret,
-                                 dtype=dtype)
     target = np.asarray(target, np.float64)
     n = params.t // params.pfreq
     if target.shape != (n,):
         raise ValueError(f"target must have one value per output window "
                          f"([{n}]), got {target.shape}")
+    curve = make_engine_curve_fn(params, scene, seed=seed, engine=engine,
+                                 rng_impl=rng_impl, interpret=interpret,
+                                 dtype=dtype)
 
     hist_p, hist_l = [], []
 
@@ -619,7 +619,7 @@ def fit_joint_crn(target, params: Params, scene, *, seed: int = 0,
     :func:`fit_diffusion_scale_crn`).
 
     ~60-80 evaluations resolve both scales to <1% at test scale; at full
-    reference scale each evaluation is one ~13 s production run.
+    reference scale each evaluation is one full production run.
 
     The alternative decomposition-record profile fit (closed-form s per
     probed d) costs a per-walker record drain per evaluation — cheaper
@@ -632,14 +632,14 @@ def fit_joint_crn(target, params: Params, scene, *, seed: int = 0,
         if not (0 < lo < hi):
             raise ValueError(f"{name} must satisfy 0 < lo < hi; "
                              f"got {(lo, hi)}")
-    curve = make_engine_curve_fn(params, scene, seed=seed, engine=engine,
-                                 rng_impl=rng_impl, interpret=interpret,
-                                 dtype=dtype)
     target = np.asarray(target, np.float64)
     n = params.t // params.pfreq
     if target.shape != (n,):
         raise ValueError(f"target must have one value per output window "
                          f"([{n}]), got {target.shape}")
+    curve = make_engine_curve_fn(params, scene, seed=seed, engine=engine,
+                                 rng_impl=rng_impl, interpret=interpret,
+                                 dtype=dtype)
 
     hist_m, hist_d, hist_l = [], [], []
 
@@ -870,17 +870,18 @@ def main(argv=None) -> int:
                           mmoment=2e-14 if args.axis == "moment" else 5e-14)
     sc = BacteriaBox(p, seed=args.scene_seed).populate()
     if args.method == "crn":
-        # production engine on a chip; the scan engine elsewhere (a
-        # Pallas kernel only lowers on TPU, and the demo must run
-        # anywhere).  The TARGET comes from the SAME engine as the fit:
-        # the engines fold sqrt(d_scale) in different multiply orders,
-        # so a cross-engine target at a non-power-of-two scale would
-        # put a trajectory-divergence noise floor under the CRN loss —
-        # exactly the premise ('deterministic, zero at truth') the fit
-        # rests on.
+        # production engine on a GPU; the scan engine elsewhere (the
+        # demo must run anywhere).  The TARGET comes from the SAME engine
+        # as the fit: the engines fold sqrt(d_scale) in different
+        # multiply orders, so a cross-engine target at a non-power-of-two
+        # scale would put a trajectory-divergence noise floor under the
+        # CRN loss — exactly the premise ('deterministic, zero at truth')
+        # the fit rests on.
         import jax
-        eng = ("pallas" if any(d.platform == "tpu"
-                               for d in jax.devices()) else "scan")
+        from .engine.pallas_engine import choose_engine
+        eng = choose_engine(anywhere=True)
+        print(f"crn demo: {eng} engine on "
+              f"{jax.devices()[0].platform}", file=sys.stderr)
         if args.axis == "cell_r":
             # size the static near list for the bracket top so the
             # coverage certificate holds at every probed radius

@@ -91,9 +91,10 @@ def save_checkpoint(path: str, state: WalkerState, params: Params,
         scene_seed=scene_seed,
         params_fp=params_fingerprint(params),
         # the RNG implementation and engine are part of the random
-        # sequence's identity: resuming a --rng hardware run under
-        # threefry (or vice versa) continues a DIFFERENT sequence —
-        # exactly the silent divergence the fingerprint exists to stop
+        # sequence's identity: resuming under another generator (e.g.
+        # a checkpoint recorded with a retired 'hardware' stream)
+        # would continue a DIFFERENT sequence — exactly the silent
+        # divergence the fingerprint exists to stop
         engine=engine,
         rng_impl=rng_impl,
         # geometry content hash: (params, scene_seed) no longer pins

@@ -123,9 +123,8 @@ def make_ensemble_pallas_sprint_fn(params: Params, mesh: Mesh,
                                    use_reflect: bool = False):
     """Production-engine ensemble: trials sharded over the mesh, each
     shard scanning its local trials through ONE compiled chunk kernel
-    (vmap over pallas_call doesn't lower to Mosaic — the SMEM scalar spec
-    can't batch — so the trial axis is a lax.scan, which is free: the
-    chip runs one kernel at a time anyway).
+    (the trial axis is a lax.scan over launches; a kernel that batches
+    trials side by side to fill more of the card is a ROADMAP item).
 
     sprint(mnp_pos [T,N,3], mnp_M [T,N], keys [T,2], planes (leading T),
            tcps [T] uint32, cell_rs [T] f32, d_scales [T] f32)
@@ -222,11 +221,10 @@ def make_ensemble_sprint_fn_2d(params: Params, mesh: Mesh,
     return jax.jit(sharded)
 
 
-def make_ensemble_pallas_sprint_fn_2d(params: Params, mesh: Mesh,
-                                      dtype=jnp.float32,
-                                      rng_impl: str = pallas_engine.RNG_THREEFRY,
-                                      interpret: bool = False,
-                                      use_reflect: bool = False):
+def make_ensemble_pallas_sprint_fn_2d(
+        params: Params, mesh: Mesh, dtype=jnp.float32,
+        rng_impl: str = pallas_engine.RNG_THREEFRY,
+        interpret: bool = False, use_reflect: bool = False):
     """The production engine on the 2D (trials x walkers) mesh: each
     shard scans its local trials through a chunk kernel sized for its
     LOCAL walkers (per-shard plane packing, sharding.to_planes_sharded
@@ -572,7 +570,7 @@ def run_ensemble(params: Params, n_trials: int,
              for i in range(n_padded)], jnp.float32),)
 
     # AOT warm-start for repeat sweeps (single-device trial mesh, the
-    # real-TPU CLI case where trace + Mosaic lowering costs ~30 s):
+    # CLI case, where tracing and kernel lowering repeat every run):
     # same key discipline as the single-run cache (engine/aot.py) with
     # the trial count and padded MNP width in the key.  Any failure
     # falls back to the jit path — the cache is only an accelerator.

@@ -1,12 +1,12 @@
-"""Multi-chip walker sharding.
+"""Multi-device walker sharding.
 
 The reference is strictly single-GPU (SURVEY §2: no MPI/NCCL anywhere);
 its only "collectives" are an intra-device cuBLAS gemv and a thrust
-reduction (cuda_sim.cu:997, 1013).  On TPU, walkers are embarrassingly
-parallel — the scene is replicated, walker state is sharded over the
-`walkers` mesh axis, and the only cross-chip communication is a psum of
-the per-window (sum cos, sum sin) pairs over ICI: 8 bytes per window, the
-cheapest possible collective.
+reduction (cuda_sim.cu:997, 1013).  Walkers are embarrassingly parallel —
+the scene is replicated, walker state is sharded over the `walkers` mesh
+axis, and the only cross-device communication is a psum of the
+per-window (sum cos, sum sin) pairs: 8 bytes per window, the cheapest
+possible collective.
 
 Counter-based RNG makes sharding exact rather than approximate: each
 shard passes ``lane_offset = axis_index * local_walkers`` so every walker
@@ -237,16 +237,16 @@ def make_sharded_pallas_sprint_fn(params: Params, num_water: int, mesh: Mesh,
                                   interpret: bool = False, cache=None,
                                   decompose: bool = False):
     """Sharded sprint over the production Pallas engine: per-shard plane
-    blocks run the fused chunk kernel locally (each shard's Mosaic grid
-    covers only its rows), window sums psum over ICI.
+    blocks run the fused chunk kernel locally (each shard's kernel grid
+    covers only its walkers), window sums psum across devices.
 
     sprint(mnp_pos, mnp_M, key_arr, plane_state) -> (plane_state', wins)
     with ``plane_state`` laid out by :func:`to_planes_sharded`.
 
     ``cache`` (an ``expansion.SceneCache``, scene-constant) is replicated
     over the mesh and passed to every shard's sprint, so big scenes run
-    the fused candidate-model recandidate (expansion.build_planes) per
-    shard instead of the slow auto-built XLA path.
+    the field-model rebuild with the scene's far table per shard instead
+    of auto-building a cube cache inside every sprint.
 
     ``decompose=True``: phase-decomposition mode — the plane state carries
     [2, R, 128] (A, B) stacks and ``wins`` is the per-walker
@@ -315,8 +315,8 @@ def run_simulation_sharded_pallas(scene, params: Params,
                                   cache=None):
     """Full sharded run on the production Pallas engine; mirrors
     pallas_engine.run_simulation.  Pass a scene ``cache``
-    (expansion.build_cache) for big scenes so every shard runs the fused
-    candidate-model recandidate."""
+    (expansion.build_cache) for big scenes so every shard's XLA field-model
+    rebuild uses the per-cube far table."""
     mesh = mesh or make_walker_mesh()
     n_shards = mesh.shape[WALKER_AXIS]
     num_water = scene.waters.shape[0]

@@ -1,6 +1,6 @@
 """Runtime simulation parameters.
 
-TPU-native replacement for the reference's compile-time parameter system
+Replacement for the reference's compile-time parameter system
 (``src/parameters.h:25-126`` — a struct of ``static const`` members plus
 preprocessor feature flags, mirrored into GPU ``__constant__`` memory at
 ``src/cuda_sim.cu:52,406-408``).  Here every knob is a field of a frozen,
@@ -131,7 +131,7 @@ class Params:
     #: magnetization output interval in ms (pInt, cuda_sim.cu:44)
     print_interval: float = 1e-3
 
-    # --- Engine knobs (TPU-specific; no reference analogue) ----------------
+    # --- Engine knobs (no reference analogue) -------------------------------
     #: timesteps per compiled device invocation (sprint); the reference used
     #: 20000 to bound its 3.9 GB RNG/trajectory buffers (parameters.h:42,
     #: README.md:48).  Here memory is O(num_water) so this only controls
@@ -145,11 +145,11 @@ class Params:
     #: scene-level validator (fields.expansion.validate_near_k) proves K
     #: covers every cell a walker can reach within a chunk
     near_k: int = 8
-    #: scan-engine inner-loop unroll factor.  The lax.scan step loop is
-    #: latency-bound on TPU (~50 us/iteration of fused-kernel dispatch);
-    #: unroll=16 is ~3x faster there but multiplies trace/compile time,
-    #: so the default stays 1 (tests, CPU) and long TPU scan runs (the
-    #: accuracy dossier) set it explicitly.  No effect on physics.
+    #: scan-engine inner-loop unroll factor.  The lax.scan step loop pays
+    #: a loop trip of device kernels per step; unrolling trades that for
+    #: trace/compile time, so the default stays 1 (tests, CPU) and long
+    #: scan runs (the accuracy dossier) set it explicitly.  No effect on
+    #: physics.
     scan_unroll: int = 1
     #: per-axis sigma multiplier of the per-chunk travel bound (escape
     #: probability ~6*P(N>s) per walker-chunk by the reflection
@@ -176,7 +176,7 @@ class Params:
     #: path (fields/fartable.py): each cube caches a Taylor expansion of
     #: every beyond-candidate dipole's field, so a chunk rebuild touches
     #: only the ~cube_candidates nearby dipoles instead of all N — the
-    #: TPU analogue of the reference octree's cached far field
+    #: analogue of the reference octree's cached far field
     #: (octree.cpp:262-297).  0 = disabled (exact far sums over all N
     #: every chunk).  Only consulted where a scene-level cache is
     #: precomputed (SimulationRunner / explicit build_cache callers).

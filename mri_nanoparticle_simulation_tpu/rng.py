@@ -1,6 +1,6 @@
 """Counter-based random number generation (Threefry-2x32).
 
-TPU-native replacement for the reference's RNG layer:
+Replacement for the reference's RNG layer:
 
 * device RNG: cuRAND XORWOW batches filling 3.9 GB of per-sprint buffers
   (``src/gpu_random.{h,cu}``, ``src/cuda_sim.cu:54-55,929-947,976-977``);
@@ -13,11 +13,11 @@ counter-based generator is a pure function ``(key, counter) -> bits``: each
 (walker, step, word) coordinate deterministically names its random number,
 so the hot loop generates values in registers, checkpoint/resume is trivial
 (the counter is the step index), and the same stream can be replayed by any
-engine (the pure-JAX scan engine, the Pallas kernel, or a NumPy oracle) for
+engine (the pure-JAX scan engine, the chunk kernel, or a NumPy oracle) for
 bitwise cross-validation.
 
 Everything here is plain ``jax.numpy`` on ``uint32``, so it runs unchanged
-inside Pallas TPU kernels, under ``jit``/``vmap``, and on CPU.
+inside Pallas kernels, under ``jit``/``vmap``, and on CPU.
 
 The 20-round Threefry-2x32 implemented here matches the Random123
 specification (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3",
@@ -88,8 +88,9 @@ def words_for_step(key: Key, step: jnp.ndarray, lane: jnp.ndarray,
     Every (step, lane, word) coordinate maps to a unique Threefry counter:
     ``c0 = step``, ``c1 = lane + n_lanes_stride * pair`` where the stride is
     2**27 (supports up to 134M walkers and 32 word-pairs per step — the
-    engine uses 3 pairs).  ``lane`` may be any int32 array (e.g. a [32, 128]
-    walker-index grid inside the Pallas kernel); ``step`` is a scalar.
+    engine uses 3 pairs).  ``lane`` may be any int32 array (e.g. a
+    program's walker-index vector inside the chunk kernel); ``step`` is a
+    scalar.
 
     Returns a list of ``n_words`` uint32 arrays shaped like ``lane``.
 
@@ -113,7 +114,7 @@ def uniform_from_bits(bits: jnp.ndarray, dtype=jnp.float32) -> jnp.ndarray:
     """Map uint32 bits to a uniform float in [0, 1).
 
     Uses the top 24 bits so the resulting value is exactly representable in
-    float32 — the float64 CPU oracle and the float32 TPU engine therefore
+    float32 — the float64 CPU oracle and the float32 engines therefore
     consume *identical* real numbers, enabling trajectory-level
     cross-validation.  (The reference drew float64 uniforms from cuRAND;
     24-bit resolution is far below every physical scale here: positions move
@@ -121,7 +122,7 @@ def uniform_from_bits(bits: jnp.ndarray, dtype=jnp.float32) -> jnp.ndarray:
     """
     shifted = bits >> jnp.uint32(8)
     # view the (now < 2^24, hence sign-safe) word as int32 before the float
-    # conversion: Mosaic has no uint32->float cast, int32->float is native
+    # conversion: a signed convert is the one every backend lowers
     as_int = jax.lax.bitcast_convert_type(shifted, jnp.int32)
     return as_int.astype(dtype) * (2.0 ** -24)
 
@@ -139,8 +140,8 @@ def normal_from_bits(bits_a: jnp.ndarray, bits_b: jnp.ndarray,
     u_a = uniform_from_bits(bits_a, dtype)
     u_b = uniform_from_bits(bits_b, dtype)
     # jnp.log(1 - u), NOT log1p(-u): 1-u is exact for 24-bit uniforms, and
-    # the Pallas kernel uses the same expression, keeping the threefry-mode
-    # engines bit-identical (log1p can round one ulp differently)
+    # the chunk kernel uses the same expression, keeping the two engines'
+    # streams identical (log1p can round one ulp differently)
     r = jnp.sqrt(dtype(-2.0) * jnp.log(dtype(1.0) - u_a))
     theta = dtype(2.0 * math.pi) * u_b
     return r * jnp.cos(theta)
@@ -164,77 +165,3 @@ def uniforms(key: Key, counter0: int, shape, dtype=jnp.float32,
                           jnp.zeros_like(idx), rounds=rounds)
     bits = jnp.stack([w0, w1], axis=-1).reshape(-1)[:n]
     return uniform_from_bits(bits, dtype).reshape(shape)
-
-
-# ----------------------------------------------------------------------------
-# Polynomial transcendentals for the production (hardware-RNG) kernel
-# ----------------------------------------------------------------------------
-
-# log2(1+t) = t * p(t) on [0,1), degree-5 p, zero-intercept fit
-# (relative err 1.9e-5 uniformly — the zero at t=0 keeps small normals
-# accurate, where an absolute-error fit loses all relative precision)
-_LOG2_C = (1.4426688869485185, -0.7201758216206064, 0.4680272392716005,
-           -0.3010465580177073, 0.14468375751156232, -0.03417634452694971)
-# cos(pi f/2) on [0,1) in f^2 (max err 1.3e-7)
-_COS_C = (0.9999999672698001, -1.23369874640111, 0.25365382913455387,
-          -0.02081621162152305, 0.0008612932951789545)
-# sin(pi f/2)/f on [0,1) in f^2 (max err 1.9e-8)
-_SIN_C = (1.5707963220855086, -0.6459638380556043, 0.07969037204200492,
-          -0.004674963271538138, 0.00015212617510292162)
-# ln(1-x)/(-x) on [0, 0.3], degree-5 (relative err 2.2e-5): the
-# exponent/mantissa route cancels catastrophically for v=1-x near 1
-# (e=-1 against t*p(t) ~ +1), so small x uses this series directly
-_LN1M_C = (0.9999997031078102, 0.5000403028246534, 0.3320388732188125,
-           0.2663687307521427, 0.10610806995246555, 0.3989336089305266)
-_LN2 = 0.6931471805599453
-
-
-def _poly(x, coeffs):
-    acc = coeffs[-1]
-    for c in coeffs[-2::-1]:
-        acc = acc * x + c
-    return acc
-
-
-def fast_normal_pair(bits_a, bits_b):
-    """Two independent standard normals via Box-Muller with polynomial
-    transcendentals (float32 only).
-
-    The VPU's library log/cos/sin cost ~160 cycles per Box-Muller pair —
-    comparable to the rest of a whole timestep.  These fits (ln via
-    exponent/mantissa split + degree-6 log2 poly; sin/cos via quadrant
-    reduction + degree-4 polys in f^2) agree with the exact formulas to
-    ~1e-5 sigma, noise-floor territory for Monte Carlo, at ~4x fewer
-    cycles.  Used by the hardware-RNG production kernel; the threefry
-    validation path keeps the exact library formulas.
-    """
-    u_a = uniform_from_bits(bits_a, jnp.float32)
-    u_b = uniform_from_bits(bits_b, jnp.float32)
-
-    # ln(1-u): v = 1-u in (2^-24, 1], exactly representable
-    v = 1.0 - u_a
-    vb = jax.lax.bitcast_convert_type(v, jnp.int32)
-    e = ((vb >> 23) & 0xFF) - 127
-    m = jax.lax.bitcast_convert_type(
-        (vb & 0x7FFFFF) | 0x3F800000, jnp.float32)
-    t = m - 1.0
-    ln_big = _LN2 * (e.astype(jnp.float32) + t * _poly(t, _LOG2_C))
-    ln_small = -u_a * _poly(u_a, _LN1M_C)   # relative-accurate near v=1
-    ln_v = jnp.where(u_a < 0.29, ln_small, ln_big)
-    r = jnp.sqrt(jnp.maximum(-2.0 * ln_v, 0.0))
-
-    # cos/sin(2 pi u) via quadrant reduction: u = (q + f)/4
-    a = u_b * 4.0
-    q = jnp.floor(a)
-    f = a - q
-    f2 = f * f
-    c0 = _poly(f2, _COS_C)
-    s0 = f * _poly(f2, _SIN_C)
-    qi = q.astype(jnp.int32)
-    cosv = jnp.where(qi == 0, c0,
-                     jnp.where(qi == 1, -s0,
-                               jnp.where(qi == 2, -c0, s0)))
-    sinv = jnp.where(qi == 0, s0,
-                     jnp.where(qi == 1, c0,
-                               jnp.where(qi == 2, -s0, -c0)))
-    return r * cosv, r * sinv

@@ -16,7 +16,7 @@ Differences from the reference, by design:
   device engine (the reference seeded xoroshiro128+ with time(NULL),
   cuda_sim.cu:911-912).
 * Step 6 of the reference populate() built the CPU octree here
-  (SimulationBox.cpp:86-92); the TPU design needs no octree — the field
+  (SimulationBox.cpp:86-92); this design needs no octree — the field
   acceleration structure (chunked local expansion / field grid) is built
   on device from the MNP array by the fields/ package.
 * An optional native C++ fast path (csrc/scene_builder.cpp via
@@ -288,7 +288,7 @@ class ClusteredBacteriaBox(BacteriaBox):
     """BacteriaBox variant with cells thrown in Gaussian clumps — the
     scene family where the reference's octree *adaptivity* mattered
     (octree.cpp:262-297 subdivides until < max_product field-gradient
-    criterion, i.e. deepest around dipole clusters).  The TPU expansion
+    criterion, i.e. deepest around dipole clusters).  The local expansion
     has no tree to deepen; its analogous cost knob is the near-list size
     K, which grows with the worst local dipole density.  This scene
     exists to stress-test that K demand (tests/test_coverage.py and the

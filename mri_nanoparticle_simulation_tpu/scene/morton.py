@@ -2,7 +2,7 @@
 
 Replaces the reference's three 256-entry byte-interleave lookup tables
 (src/octree.h:97-233, assembled bytewise at octree.cpp:37-72 and mirrored
-to the GPU at cuda_sim.cu:129-161).  On TPU nothing in the hot loop needs
+to the GPU at cuda_sim.cu:129-161).  Here nothing in the hot loop needs
 Morton codes — the octree they indexed is replaced by the chunked local
 field expansion — but they are kept for:
 

@@ -1,12 +1,10 @@
 """PEP-562-style lazy module proxy.
 
-The pallas modules cost ~0.8 s of pure import time (half the CLI's
-import bill, measured r4 with ``-X importtime``) yet are touched only at
-KERNEL-CONSTRUCTION time: a warm AOT-cache CLI run (engine/aot.py)
-deserializes the compiled executable and never traces, so it should
-never pay them.  Modules that only use pallas inside function bodies
-bind these proxies at module scope; the first attribute access triggers
-the real import once.
+The pallas modules are touched only at KERNEL-CONSTRUCTION time: a warm
+AOT-cache CLI run (engine/aot.py) deserializes the compiled executable
+and never traces, so it should never pay their import.  Modules that
+only use pallas inside function bodies bind these proxies at module
+scope; the first attribute access triggers the real import once.
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ variance — exactly why GOLDEN_T2.json sat at 0.30x H0 while the
 production-scale arm resolves it.
 
 Usage:
-  python scripts/golden_attribution.py            # needs TPU + oracle CSVs
+  python scripts/golden_attribution.py            # needs a GPU + oracle CSVs
   python scripts/golden_attribution.py --skip-framework
 """
 
@@ -154,7 +154,7 @@ def main():
             "verdict": "framework field model contributes "
                        f"{rms:.1e} rms — negligible vs the residual"}
 
-    # Experiment 2 (the decisive one, VERDICT r4 item 1): the oracle's
+    # Experiment 2 (the decisive one): the oracle's
     # own curve as its field improves, under the SAME walker streams as
     # the committed coarse runs.  Trajectories are field-independent,
     # so every delta below has ZERO walker noise.  Three field-accuracy

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Paired dispersion-plane golden arm (VERDICT r3 item 4).
+"""Paired dispersion-plane golden arm.
 
 The flagship one-record claim: ONE decomposition run at a base
 Carr-Purcell spacing reconstructs the T2 curve at EVERY aligned echo
@@ -57,21 +57,22 @@ def arm_args(tcp: int) -> argparse.Namespace:
 def run_framework_records(scenes, p, n_reps: int):
     """One decomposition record per (scene, rep) at BASE_TCP; curves at
     every spacing reconstructed from it.  Returns [S, n_tcps, n_win]."""
-    import jax
-
     from mri_nanoparticle_simulation_tpu.engine import decompose as dec
+    from mri_nanoparticle_simulation_tpu.engine.pallas_engine import \
+        choose_engine
     from mri_nanoparticle_simulation_tpu.params import DEFAULT
 
-    on_tpu = any(d.platform == "tpu" for d in jax.devices())
+    engine = choose_engine(anywhere=True)
+    import jax
+    print(f"[framework] {engine} engine on {jax.devices()[0].platform}",
+          file=sys.stderr)
     taucps = [t * DEFAULT.tau for t in TCPS]
     out = []
     for si, scene in enumerate(scenes):
         reps = []
         for k in range(n_reps):
             rec = dec.run_decomposition(
-                scene, p, seed=FW_SEED0 + 1000 * si + k,
-                engine="pallas" if on_tpu else "scan",
-                rng_impl="hardware" if on_tpu else "threefry")
+                scene, p, seed=FW_SEED0 + 1000 * si + k, engine=engine)
             reps.append(dec.curves_at_plane(rec.A, rec.B, [1.0], taucps,
                                             p)[0])
         out.append(np.mean(reps, axis=0))
@@ -94,7 +95,7 @@ def main():
     ap.add_argument("--skip-oracle", action="store_true")
     ap.add_argument("--fw-cache", default=None,
                     help="npz caching the per-scene reconstruction "
-                         "curves (run the TPU arm early, assemble "
+                         "curves (run the device arm early, assemble "
                          "later)")
     ap.add_argument("--out", default="GOLDEN_DISPERSION.json")
     args = ap.parse_args()
@@ -176,8 +177,8 @@ def main():
             "rms_ratio": float(np.sqrt(np.mean(mean_d ** 2))
                                / np.sqrt(np.mean(se ** 2)))
                 if S > 1 else None,
-            # same statistic and name as golden_paired.py (VERDICT r4
-            # weak #2): paired per-point t = mean_d/se, S-1 dof; needs
+            # same statistic and name as golden_paired.py: paired
+            # per-point t = mean_d/se, S-1 dof; needs
             # >= 3 paired scenes for a stable se estimate
             "max_abs_t_paired": float(np.abs(z).max()) if S > 2 else None,
             "r2_oracle_per_ms": [float(v) for v in r2_o],

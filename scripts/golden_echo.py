@@ -83,13 +83,16 @@ def load_oracle(work_dir: str):
 def run_framework_trials(n_trials: int):
     """Decomposition runs at the BASE schedule (G.TCP), reconstructed at
     TCP2 — the echo axis from records that never simulated it."""
-    import jax
-
     from mri_nanoparticle_simulation_tpu import params as P
     from mri_nanoparticle_simulation_tpu.engine import decompose as dec
+    from mri_nanoparticle_simulation_tpu.engine.pallas_engine import \
+        choose_engine
     from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
 
-    on_tpu = any(d.platform == "tpu" for d in jax.devices())
+    engine = choose_engine(anywhere=True)
+    import jax
+    print(f"[framework] {engine} engine on {jax.devices()[0].platform}",
+          file=sys.stderr)
     p = P.DEFAULT.replace(
         num_water=G.N_WATER,
         totaltime=G.STEPS * P.DEFAULT.tau,
@@ -107,9 +110,7 @@ def run_framework_trials(n_trials: int):
               flush=True)
         sc = BacteriaBox(p, seed=7000 + t).populate()
         rec = dec.run_decomposition(
-            sc, p, seed=8000 + t,
-            engine="pallas" if on_tpu else "scan",
-            rng_impl="hardware" if on_tpu else "threefry")
+            sc, p, seed=8000 + t, engine=engine)
         curves.append(dec.curves_at_plane(rec.A, rec.B, [1.0], [taucp2],
                                           p)[0, 0])
     return np.asarray(curves)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""DWI / gradient golden arm (VERDICT r4 item 4): reference physics vs
+"""DWI / gradient golden arm: reference physics vs
 this framework under a constant background gradient, PLUS the analytic
 Carr-Purcell anchor — three independent values of the same number.
 

@@ -19,7 +19,7 @@ count explodes.  This harness removes it exactly:
   * statistics are paired: d_s(t) = oracle_s(t) - framework_s(t),
     se(t) = std_s(d_s(t)) / sqrt(P).  Scene variance cancels in d_s.
 
-This is the production-scale deep-decay instrument (VERDICT r3 item 1):
+This is the production-scale deep-decay instrument:
 default config 4032 walkers (parameters.h:46) x 2e6 steps (2 ms) with
 moment x60, tcp=250k -> 8 Carr-Purcell flips and a curve decaying below
 0.3 — thousands of accumulated radians through the f32/Kahan path, the
@@ -51,7 +51,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "golden")
 
-# production-scale defaults (VERDICT r3 item 1): every reference default
+# production-scale defaults: every reference default
 # (4032 walkers, 270 cells, tau 1e-6 ms) with the time axis moment-scaled
 # to the 40 ms run's decay depth in 2 ms of simulated time
 N_WATER = 4032
@@ -171,8 +171,8 @@ def load_scene(d: str, p):
 
 def run_framework_cached(scenes, p, args, seeds):
     """run_framework with an optional npz cache (--fw-cache): the
-    framework (TPU) arm is independent of the oracle CSVs, so on a
-    1-CPU box it can run EARLY while the oracle queue churns, and the
+    framework (device) arm is independent of the oracle CSVs, so it can
+    run EARLY while the oracle queue churns, and the
     assembly later just loads the curves.  The cache stores the seed
     list; a mismatch falls through to a fresh run."""
     path = getattr(args, "fw_cache", None)
@@ -196,17 +196,14 @@ def run_framework(scenes, p, args):
     common length with zero-moment entries far outside the box (never
     near-K candidates, never residents — walkers in these configs stay
     in the central sub-cube, >10 um from any face)."""
-    import jax
     import jax.numpy as jnp
     from mri_nanoparticle_simulation_tpu import rng
     from mri_nanoparticle_simulation_tpu.engine import pallas_engine
     from mri_nanoparticle_simulation_tpu.engine.reference_engine import \
         init_state
 
-    on_tpu = any(dv.platform == "tpu" for dv in jax.devices())
-    rng_impl = "hardware" if on_tpu else "threefry"
     n_pad = max(s.mnps.shape[0] for s in scenes)
-    sprint = pallas_engine.make_sprint_fn(p, N_WATER, jnp.float32, rng_impl)
+    sprint = pallas_engine.make_sprint_fn(p, N_WATER, jnp.float32)
     curves = []
     for si, scene in enumerate(scenes):
         mnps = scene.mnps
@@ -260,7 +257,7 @@ def main():
     ap.add_argument("--skip-oracle", action="store_true")
     ap.add_argument("--fw-cache", default=None,
                     help="npz path caching the framework-arm curves "
-                         "(run the TPU arm early, assemble later)")
+                         "(run the device arm early, assemble later)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if args.reflect:
@@ -325,7 +322,7 @@ def main():
         "rms_diff": rms,
         "rms_expected_under_h0": rms_expected,
         "rms_ratio": float(rms / rms_expected),
-        # ONE statistic, one name (VERDICT r4 weak #2): the paired
+        # ONE statistic, one name: the paired
         # per-point t — mean_d(t) / se(t), se from the P scene-pair
         # differences (P-1 dof).  With few pairs the per-point se
         # estimate is itself noisy (t_{P-1} is heavy-tailed), so the

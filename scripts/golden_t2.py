@@ -9,7 +9,7 @@ framework's production engine on the same *statistical* experiment
 independent seeds) and tests the two T2 ensembles for equivalence.
 
 The comparison is STATISTICAL by construction: the two sides use
-different RNGs (mt19937 vs Threefry/TPU-PRNG) and different scenes per
+different RNGs (mt19937 vs Threefry) and different scenes per
 trial — exactly like comparing two independent batches of reference
 runs.  The metric is the normalized magnetization curve
 m(t) = sum cos(phi) / W; we report:
@@ -116,14 +116,11 @@ def load_oracle(work_dir: str, d_scale: float = 1.0,
 def run_framework_trials(n_trials: int, d_scale: float = 1.0,
                          cell_r: float = 0.0,
                          reflect: tuple[float, float] | None = None):
-    """Production engine (pallas, hardware RNG when on TPU), matched
+    """Production engine (the chunk kernel; needs a GPU), matched
     params: as-written kick + cube direction + per-window CP schedule —
     the reference-physics compatibility mode."""
     from mri_nanoparticle_simulation_tpu import params as P
     from mri_nanoparticle_simulation_tpu.parallel import ensemble
-    import jax
-
-    on_tpu = any(d.platform == "tpu" for d in jax.devices())
     p = P.DEFAULT.replace(
         num_water=N_WATER,
         totaltime=STEPS * P.DEFAULT.tau,         # 0.5 ms
@@ -141,7 +138,6 @@ def run_framework_trials(n_trials: int, d_scale: float = 1.0,
     _, cos, _, _ = ensemble.run_ensemble(
         p, n_trials=n_trials, base_seed=7000, run_seed=8000,
         engine="pallas",
-        rng_impl="hardware" if on_tpu else "threefry",
         d_scales=None if d_scale == 1.0 else [d_scale] * n_trials,
         # fixed geometry + runtime residency radius: the launch-scalar
         # semantics inverse.fit_cell_radius_crn rides (the oracle

@@ -2,7 +2,7 @@
 
 For each scene family (reference, clustered, dense, large-cell) and chunk
 size, reports the validated worst-case near-list demand K* =
-validate_near_k(...) at the default 7-sigma travel bound — the TPU
+validate_near_k(...) at the default 7-sigma travel bound — the
 expansion's analogue of the reference octree's adaptive depth
 (octree.cpp:262-297).  Kernel cost is linear in K, so this table IS the
 cost model for pathological scenes.

@@ -18,7 +18,7 @@ taucp 2.5 — PLAN item 21).  This script:
 
 Writes SPECTRUM_DEMO.json (+ optional --plot PNG of the spectrum).
 
-Full reference scale (one v5e):
+Full reference scale (one GPU):
   python scripts/spectrum_demo.py --out SPECTRUM_DEMO.json
 Reduced CPU smoke (seconds):
   JAX_PLATFORMS=cpu python scripts/spectrum_demo.py --reduced
@@ -50,10 +50,12 @@ def main():
     args = ap.parse_args()
 
     import jax
-    if os.environ.get("JAX_PLATFORMS") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-    on_tpu = any(d.platform == "tpu" for d in jax.devices())
 
+    from mri_nanoparticle_simulation_tpu.engine.pallas_engine import \
+        choose_engine
+    engine = choose_engine(anywhere=True)
+    print(f"{engine} engine on {jax.devices()[0].platform}",
+          file=sys.stderr)
     from mri_nanoparticle_simulation_tpu import analysis as an
     from mri_nanoparticle_simulation_tpu import params as P
     from mri_nanoparticle_simulation_tpu.parallel import ensemble
@@ -71,8 +73,7 @@ def main():
     d_vals = [0.25, 1.0]
     times, cos = ensemble.run_parameter_sweep(
         p, "D", d_vals, n_trials_each=1, paired=True,
-        engine="pallas" if on_tpu else "scan",
-        rng_impl="hardware" if on_tpu else "threefry")
+        engine=engine)
     curves = np.asarray(cos)[:, 0, :] / p.num_water   # [2, n]
 
     def envelope(y):
@@ -89,7 +90,8 @@ def main():
         "config": {"num_water": p.num_water, "steps": p.t,
                    "taucp_ms": taucp, "d_scales": d_vals,
                    "n_echoes": int(len(te)), "reduced": args.reduced,
-                   "device": "tpu" if on_tpu else "cpu"},
+                   "engine": engine,
+                   "device": jax.devices()[0].platform},
         "compartment_t2_ms": {"d0.25": f_slow.t2_ms, "d1": f_fast.t2_ms},
         "mixture_mono_t2_ms": mono.t2_ms,
         "mixture_mono_r_squared": mono.r_squared,

@@ -1,12 +1,11 @@
-"""Golden-artifact completeness and consistency gates (VERDICT r4
-weak #3: a committed artifact must not ship holes where its own schema
-promises statistics; weak #2: one named statistic across prose and
-JSON).
+"""Golden-artifact completeness and consistency gates: a committed
+artifact must not ship holes where its own schema promises statistics,
+and one named statistic runs across prose and JSON.
 
 These tests run on CPU in seconds: they validate the COMMITTED
 artifacts — schema completeness, internal consistency, and that the
 headline statistics reproduce from the committed curve dumps — not the
-simulations that produced them (those are the tpu-marked golden tests
+simulations that produced them (those are the gpu-marked golden tests
 and the scripts/golden_*.py instruments).
 """
 
@@ -51,7 +50,7 @@ class TestPairedArtifacts:
                    - float(np.sqrt(np.mean(se ** 2)))) < 1e-9
         t = mean_d / np.maximum(se, 1e-12)
         assert abs(rep["max_abs_t_paired"] - np.abs(t).max()) < 1e-6
-        # the old ambiguous name must not reappear (VERDICT r4 weak #2)
+        # the old ambiguous name must not reappear
         assert "max_abs_z" not in rep
         assert "t_paired" in rep["stat_definition"]
 
@@ -96,7 +95,7 @@ class TestDispersionArtifact:
 
 class TestAttributionArtifact:
     def test_tightening_experiment_populated(self):
-        """VERDICT r4 item 1: the decisive zero-noise experiment must
+        """The decisive zero-noise experiment must
         carry measured per-seed deltas, not an empty dict."""
         rep = _load("GOLDEN_T2_FULL_ATTRIBUTION.json")
         per_seed = rep["oracle_octree_tightening"]["per_seed"]

@@ -2,7 +2,7 @@
 
 The reference's octree was *adaptive* (octree.cpp:262-297): it subdivided
 deepest where dipoles cluster, so pathological scenes cost tree depth, not
-correctness.  The TPU expansion's analogous knob is the near-list size K;
+correctness.  The local expansion's analogous knob is the near-list size K;
 its correctness contract is validate_near_k (every dipole within
 cell_r + travel of any anchor is among the K nearest).  These tests stress
 that contract where the reference's adaptivity mattered: Gaussian dipole
@@ -122,7 +122,7 @@ class TestTravelBound:
 
 class TestDeterministicBound:
     """Round-3: validate_near_k is a PROVEN covering-lattice upper bound
-    (VERDICT r2, weak #4) — no longer probe-sampled."""
+    — no longer probe-sampled."""
 
     def test_bound_dominates_random_probing(self):
         """On random scenes the certified bound must dominate any
@@ -183,7 +183,7 @@ class TestDeterministicBound:
         set, reach): the second validate_near_k call must hit the cache
         (observable as no recompute via a counter shim) and return the
         identical certified bound.  A different reach must miss."""
-        monkeypatch.setenv("MRI_TPU_COMPILE_CACHE", str(tmp_path))
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
         rng = np.random.default_rng(3)
         dip = rng.random((40, 3)) * 9.0
         p = P.DEFAULT.replace(chunk_steps=1000)

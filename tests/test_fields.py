@@ -349,90 +349,104 @@ class TestFarTable:
         assert float(jnp.sqrt(jnp.mean((b_t - b_e) ** 2))) < 2e-2 * scale
 
 
-class TestPallasFarSums:
-    def test_pallas_far_sums_match_xla(self):
-        """The fused Pallas far-sum kernel (big-scene recandidate path)
-        against the XLA reductions: same near selection, same exclusion
-        contract, agreement to f32 summation-order noise."""
-        import jax.numpy as jnp
-        from mri_nanoparticle_simulation_tpu.params import Params
-        from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
-
-        p = Params(num_water=256, num_cells=64, chunk_steps=2000,
-                   near_k=5, sprint_steps=20000).validate()
-        sc = BacteriaBox(p, seed=1).populate()
-        mnp_pos = jnp.asarray(sc.mnps[:, :3], jnp.float32)
-        mnp_M = jnp.asarray(sc.mnps[:, 4], jnp.float32)
-        anchor = jnp.asarray(sc.waters[:256], jnp.float32)
-        nf1 = expansion.build(anchor, mnp_pos, mnp_M, p)
-        nf2 = expansion.build(anchor, mnp_pos, mnp_M, p,
-                              far_impl="pallas", interpret=True)
-        np.testing.assert_array_equal(np.asarray(nf1.near_pos),
-                                      np.asarray(nf2.near_pos))
-        for f in ("b0", "grad", "hess"):
-            a = np.asarray(getattr(nf1, f))
-            b = np.asarray(getattr(nf2, f))
-            assert np.abs(a - b).max() / np.abs(a).max() < 1e-5, f
+def _exact_far_sums(anchors, mnps, near_idx):
+    """Float64 far-field sums (under the ``f64`` fixture) over every
+    dipole NOT in each anchor's near list: (b0 [W], grad [W, 3],
+    hess [W, 6])."""
+    a = np.asarray(anchors, np.float64)
+    w, n = a.shape[0], mnps.shape[0]
+    far = np.ones((w, n), bool)
+    far[np.arange(w)[:, None], np.asarray(near_idx)] = False
+    d = a[:, None, :] - np.asarray(mnps[:, :3], np.float64)[None]
+    dx, dy, dz = (np.where(far, d[..., i], 1.0) for i in range(3))
+    m = np.asarray(mnps[:, 4], np.float64)[None]
+    wgt = far.astype(np.float64)
+    b0 = np.asarray(dipole.dipole_bz(dx, dy, dz, m))
+    g = [np.asarray(c) for c in dipole.dipole_bz_grad(dx, dy, dz, m)]
+    h = [np.asarray(c) for c in dipole.dipole_bz_hessian(dx, dy, dz, m)]
+    return (np.sum(b0 * wgt, 1),
+            np.stack([np.sum(c * wgt, 1) for c in g], -1),
+            np.stack([np.sum(c * wgt, 1) for c in h], -1))
 
 
-class TestFusedCandModel:
-    """expansion.build_planes — the fused selection + mid-sums +
-    far-table kernel — against the XLA path on the same cache."""
+def _near_idx(nf, mnps):
+    """Recover each anchor's selected dipole indices from near_pos."""
+    npos = np.asarray(nf.near_pos, np.float64)             # [W, K, 3]
+    d = np.sum((npos[:, :, None, :] - mnps[None, None, :, :3]) ** 2, -1)
+    return np.argmin(d, axis=-1)                           # [W, K]
 
-    def test_matches_xla_path(self):
-        from mri_nanoparticle_simulation_tpu.fields import dipole as dip
-        p = P.DEFAULT.replace(num_cells=250, water_start_bound=28.0,
-                              max_neighbors=40, near_k=8,
-                              chunk_steps=2000, cube_hash_dim=8,
-                              cube_candidates=48, far_table_order=3)
-        sc = BacteriaBox(p, seed=5).populate()
+
+class TestXlaFarSums:
+    """expansion.build — the XLA field-model rebuild of the big-scene
+    path — against exact float64 far sums over the non-selected dipoles
+    (the same exclusion contract the chunk kernel relies on)."""
+
+    @pytest.fixture(scope="class")
+    def scene(self):
+        p = P.Params(num_water=256, num_cells=64, chunk_steps=2000,
+                     near_k=5, sprint_steps=20000).validate()
+        return p, BacteriaBox(p, seed=1).populate()
+
+    def _check(self, nf, anchors, mnps):
+        assert nf.b0.dtype == jnp.float32       # the engine's precision
+        want = _exact_far_sums(anchors, mnps, _near_idx(nf, mnps))
+        for name, got, ref in zip(("b0", "grad", "hess"),
+                                  (nf.b0, nf.grad, nf.hess), want):
+            got = np.asarray(got, np.float64)
+            assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5, name
+
+    def test_small_path_matches_exact_far_sums(self, scene, f64):
+        p, sc = scene
+        mp = jnp.asarray(sc.mnps[:, :3], jnp.float32)
+        mM = jnp.asarray(sc.mnps[:, 4], jnp.float32)
+        anchors = jnp.asarray(sc.waters[:256], jnp.float32)
+        nf = expansion.build(anchors, mp, mM, p)
+        self._check(nf, anchors, sc.mnps)
+
+    def test_cube_path_matches_exact_far_sums(self, scene, f64):
+        """The cube-candidate selection with exact far sums (no table):
+        the big-scene rebuild the kernel's near/taylor inputs come
+        from."""
+        p, sc = scene
+        p = p.replace(cube_hash_dim=4, cube_candidates=48,
+                      far_table_order=0)
+        assert expansion.validate_cube_candidates(
+            sc.mnps[:, :3], p) <= p.cube_candidates
         mp = jnp.asarray(sc.mnps[:, :3], jnp.float32)
         mM = jnp.asarray(sc.mnps[:, 4], jnp.float32)
         cache = expansion.build_cache(mp, mM, p)
-        rng = np.random.default_rng(3)
-        w = 256
-        anchors = jnp.asarray(rng.random((w, 3)) * p.bound, jnp.float32)
-        r = w // 128
-        px = anchors[:, 0].reshape(r, 128)
-        py = anchors[:, 1].reshape(r, 128)
-        pz = anchors[:, 2].reshape(r, 128)
-        # jit the call as the engine does (the unrolled kernel is ~6k ops;
-        # eager interpret-mode dispatch of that is minutes on one core)
-        near, taylor, _ = jax.jit(
-            lambda a, b, c: expansion.build_planes(a, b, c, p, cache,
-                                                   interpret=True))(
-            px, py, pz)
-        near = np.asarray(near)
-        taylor = np.asarray(taylor)
-        k = p.near_k
-        nf_k = expansion.NearField(
-            anchor=anchors,
-            near_pos=jnp.asarray(np.stack(
-                [near[0].reshape(k, w).T, near[1].reshape(k, w).T,
-                 near[2].reshape(k, w).T], -1)),
-            near_M=jnp.asarray(near[3].reshape(k, w).T / dip.FIELD_SCALE),
-            b0=jnp.asarray(taylor[0].reshape(w)),
-            grad=jnp.asarray(taylor[1:4].reshape(3, w).T),
-            hess=jnp.asarray(taylor[4:10].reshape(6, w).T))
-        nf_x = expansion.build(anchors, mp, mM, p, cache=cache)
+        assert cache.far_coeffs is None
+        anchors = jnp.asarray(sc.waters[:256], jnp.float32)
+        nf = expansion.build(anchors, mp, mM, p, cache=cache)
+        self._check(nf, anchors, sc.mnps)
 
-        tb = expansion.default_travel_bound(p)
-        delta = rng.normal(size=(w, 3))
-        delta = delta / np.linalg.norm(delta, axis=1, keepdims=True) \
-            * tb * rng.random((w, 1))
-        pos = anchors + jnp.asarray(delta, jnp.float32)
-        b_k, in_k, _ = expansion.evaluate(nf_k, pos, p.cell_r)
-        b_x, in_x, _ = expansion.evaluate(nf_x, pos, p.cell_r)
-        # identical partition physics (same cache, same table): the total
-        # field differs only by f32 summation order + selection-tie swaps
-        scale = float(jnp.max(jnp.abs(b_x)))
-        assert float(jnp.max(jnp.abs(b_k - b_x))) < 1e-5 * scale
-        np.testing.assert_array_equal(np.asarray(in_k), np.asarray(in_x))
+    def test_rejects_table_of_other_order(self, scene):
+        p, sc = scene
+        p = p.replace(cube_hash_dim=4, cube_candidates=48,
+                      far_table_order=3)
+        mp = jnp.asarray(sc.mnps[:, :3], jnp.float32)
+        mM = jnp.asarray(sc.mnps[:, 4], jnp.float32)
+        cache = expansion.build_cache(mp, mM, p)
+        with pytest.raises(ValueError, match="different order"):
+            expansion.build(mp[:8], mp, mM, p.replace(far_table_order=2),
+                            cache=cache)
 
-    def test_rejects_cache_without_table(self):
-        p = P.DEFAULT.replace(far_table_order=0)
-        cache = expansion.SceneCache(
-            payload=jnp.zeros((8, 4, 5)), far_coeffs=None)
-        with pytest.raises(ValueError, match="far table"):
-            expansion.build_planes(jnp.zeros((1, 128)), jnp.zeros((1, 128)),
-                                   jnp.zeros((1, 128)), p, cache)
+
+class TestPairwiseDistance:
+    def test_full_precision_at_30um(self):
+        """The matmul distance form at coordinates up to 30 µm against
+        the difference form: the product is pinned to full f32 (a TF32
+        product would round |a|^2 ~ 1e3 µm^2 by ~1 µm^2)."""
+        rng = np.random.default_rng(4)
+        a = rng.random((256, 3)) * 30.0
+        b = rng.random((300, 3)) * 30.0
+        got = np.asarray(expansion._pairwise_d2(
+            jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32)))
+        want = np.sum((a[:, None] - b[None]) ** 2, -1)
+        # f32 cancellation noise of |a|^2 + |b|^2 - 2ab at ~2.7e3 µm^2
+        assert np.abs(got - want).max() < 2e-3
+
+    def test_highest_precision_in_lowering(self):
+        a = jnp.zeros((8, 3), jnp.float32)
+        text = jax.jit(expansion._pairwise_d2).lower(a, a).as_text()
+        assert "HIGHEST" in text

@@ -1,12 +1,15 @@
-"""Pallas engine cross-validation against the scan engine.
+"""Chunk-kernel cross-validation against the scan engine.
 
-Run in interpreter mode on CPU with the shared Threefry streams: the two
-engines consume identical random numbers and execute the same arithmetic,
-so trajectories agree to within compiler-level FMA/association differences
-(a few ULPs over thousands of steps) — the strongest practical equivalence
-for a rewritten kernel.  The real-TPU
-equivalents are exercised by bench.py and the tpu-marked test."""
+Run in Pallas' interpreter on CPU with the shared Threefry streams: the
+two engines consume identical random numbers and execute the same
+arithmetic, so trajectories agree to within compiler-level FMA/association
+differences (a few ULPs over thousands of steps) — the strongest practical
+equivalence for a rewritten kernel.  The compiled kernel on the card is
+exercised by the gpu-marked tests (TestOnGpu, tests/test_gpu_hardware.py)
+and chip_smoke.py; TestTritonLowering checks here that every kernel
+variant lowers through the Triton route for CUDA."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,10 +98,13 @@ class TestPlaneRoundtrip:
                                       np.asarray(st2.in_cell))
 
 
-@pytest.mark.tpu
-class TestOnHardware:
+@pytest.mark.gpu
+class TestOnGpu:
     def test_compiled_kernel_matches_scan(self):
-        """Mosaic-compiled kernel vs scan engine on the real chip."""
+        """Triton-compiled kernel vs scan engine on the card.  Same
+        Threefry streams; XLA and Triton both contract to FMA in their
+        own order, so positions agree to f32 rounding (1e-4 µm) and
+        window sums to 0.05 of 64 walkers."""
         p = P.small_test_params(chunk_steps=100, print_interval=0.0001,
                                 num_water=64, totaltime=0.0005,
                                 sprint_steps=500)
@@ -110,30 +116,11 @@ class TestOnHardware:
                                    np.asarray(st2.pos), atol=1e-4)
         np.testing.assert_allclose(c1, c2, atol=0.05)
 
-    def test_hardware_rng_curve_matches_threefry(self):
-        """The 87x headline path (hardware PRNG + polynomial Box-Muller)
-        against the Threefry validation path on the real chip: the two
-        T2 curves are independent samples of the same ensemble, so they
-        must agree within the walker-sampling noise.  The full-length
-        version of this comparison is dossier arm C (ACCURACY.md)."""
-        p = P.Params(num_water=4032, totaltime=0.04, chunk_steps=4000,
-                     near_k=5, sprint_steps=20000).validate()
-        sc = BacteriaBox(p, seed=42).populate()
-        _, c_hw, _, st_hw = pe.run_simulation(
-            sc, p, seed=7, rng_impl=pe.RNG_HARDWARE)
-        _, c_tf, _, _ = pe.run_simulation(
-            sc, p, seed=7, rng_impl=pe.RNG_THREEFRY)
-        d = (np.asarray(c_hw) - np.asarray(c_tf)) / p.num_water
-        # difference of two independent W-walker means of cos phi:
-        # sigma <= sqrt(2/W); allow 5 sigma on the max window
-        assert np.abs(d).max() < 5.0 * np.sqrt(2.0 / p.num_water)
-        assert int(st_hw.escapes) == 0
-
-    def test_fused_recand_on_hardware(self, monkeypatch):
-        """The fused candidate-model recandidate (big-scene path)
-        compiled for real Mosaic: forced via REBUILD_MAX_MNPS=0 with an
-        all-candidates cache (exact partition — far table identically
-        zero), it must match the scan engine like every other path."""
+    def test_big_scene_path_on_gpu(self):
+        """The big-scene path (XLA field-model rebuild feeding the
+        kernel) on the card: forced with an all-candidates cache (exact
+        partition — far table identically zero), it must match the scan
+        engine like every other path."""
         from mri_nanoparticle_simulation_tpu import rng
         from mri_nanoparticle_simulation_tpu.fields import expansion
         p = P.small_test_params(num_water=128, totaltime=0.001,
@@ -144,7 +131,6 @@ class TestOnHardware:
         mM = jnp.asarray(sc.mnps[:, 4], jnp.float32)
         assert sc.mnps.shape[0] <= p.cube_candidates
         cache = expansion.build_cache(mp, mM, p)
-        monkeypatch.setattr(pe, "REBUILD_MAX_MNPS", 0)
         sprint = pe.make_sprint_fn(p, 128)
         kk = rng.key_from_seed(9)
         key_arr = jnp.asarray([np.uint32(kk[0]), np.uint32(kk[1])])
@@ -160,10 +146,10 @@ class TestOnHardware:
                                    np.asarray(st2.pos), atol=1e-4)
         np.testing.assert_allclose(wins[:, 0], c2, atol=0.05)
 
-    def test_runtime_sweep_scalars_on_hardware(self):
-        """The sweep launch scalars through real Mosaic (the CP flip is
-        a scalar mod by an SMEM value; cell_r² rides a bitcast vector
-        register): a runtime-override run must be bitwise-equal to the
+    def test_runtime_sweep_scalars_on_gpu(self):
+        """The sweep launch scalars through the compiled kernel (the CP
+        flip is a scalar mod by a launch scalar; cell_r² rides as a bit
+        pattern): a runtime-override run must be bitwise-equal to the
         statically-compiled engine."""
         from mri_nanoparticle_simulation_tpu import rng
         p = P.small_test_params(num_water=256, totaltime=0.001,
@@ -192,9 +178,10 @@ class TestOnHardware:
 
 class TestMultiBlock:
     def test_two_block_grid_matches_scan(self):
-        """num_water > one 4096-walker block: the kernel runs a 2-step
-        grid; physics must match the scan engine exactly (per-block RNG
-        seeding and valid-mask handling are the risks)."""
+        """A population spread over many kernel programs, with the last
+        plane only partly filled: physics must match the scan engine
+        exactly (per-program lane offsets and the valid mask are the
+        risks)."""
         p = P.small_test_params(chunk_steps=100, print_interval=0.0001,
                                 num_water=4200, num_cells=12,
                                 totaltime=0.0002, sprint_steps=200,
@@ -203,7 +190,8 @@ class TestMultiBlock:
         _, c1, _, st1 = re.run_simulation(sc, p, seed=1, dtype=jnp.float32)
         _, c2, _, st2 = pe.run_simulation(sc, p, seed=1, dtype=jnp.float32,
                                           interpret=True)
-        assert pe.pad_count(4200) == 8192  # really 2 blocks
+        assert pe.pad_count(4200) == 4224
+        assert pe.pad_count(4200) // pe.BLOCK_WALKERS > 1  # many programs
         np.testing.assert_allclose(np.asarray(st1.pos),
                                    np.asarray(st2.pos), atol=5e-6)
         np.testing.assert_allclose(c1, c2, atol=1e-2)
@@ -211,11 +199,8 @@ class TestMultiBlock:
 
 class TestOddPfreq:
     def test_odd_pfreq_step_count_threefry(self):
-        """pfreq=125 (odd): the paired-step hardware loop runs a trailing
-        single step; constant-kick phase counts steps exactly.  Run in
-        threefry interpret mode on CPU (the hardware path shares the
-        window/loop structure; its TPU variant is covered by the analytic
-        check in the round log and the same code path)."""
+        """pfreq=125 (odd): the in-kernel window loop must count every
+        step; constant-kick phase counts steps exactly."""
         p = P.Params(num_water=32, num_cells=1, mmoment=0.0,
                      kick_mode=P.KICK_CONSTANT, phase_k=400.0, bound=8.0,
                      cell_r=3.5, water_start_bound=1.0,
@@ -382,12 +367,13 @@ class TestDiffusionScaleScalar:
 
 
 class TestBigScenePathFused:
-    def test_fused_recand_matches_scan_engine(self, monkeypatch):
-        """Force the big-scene path (REBUILD_MAX_MNPS -> 0) with a
+    def test_fused_recand_matches_scan_engine(self):
+        """Force the big-scene path (the cube-candidate field-model
+        rebuild, expansion.build, feeds the kernel) with a
         far-table cache whose candidate set covers EVERY dipole, so the
-        table term is identically zero and the fused candidate-model
-        recandidate is an exact partition — the engine must then match
-        the scan engine to the usual cross-engine tolerance."""
+        table term is identically zero and the rebuild is an exact
+        partition — the engine must then match the scan engine to the
+        usual cross-engine tolerance."""
         from mri_nanoparticle_simulation_tpu import rng as rng_mod
         from mri_nanoparticle_simulation_tpu.fields import expansion
         p = P.small_test_params(num_water=128, totaltime=0.001,
@@ -399,7 +385,6 @@ class TestBigScenePathFused:
         assert sc.mnps.shape[0] <= p.cube_candidates
         cache = expansion.build_cache(mp, mM, p)
         assert cache.far_coeffs is not None
-        monkeypatch.setattr(pe, "REBUILD_MAX_MNPS", 0)
         sprint = pe.make_sprint_fn(p, 128, interpret=True)
         kk = rng_mod.key_from_seed(9)
         key_arr = jnp.asarray([np.uint32(kk[0]), np.uint32(kk[1])])
@@ -477,3 +462,126 @@ class TestReflectScalar:
         sc = BacteriaBox(p, seed=5).populate()
         with pytest.raises(ValueError, match="reflection enabled"):
             self._pallas_sprints(p, sc, reflect=(0.5, 0.5))
+
+
+class TestChooseEngine:
+    """pallas_engine.choose_engine: the one platform -> engine decision."""
+
+    def test_gpu_picks_the_kernel(self, monkeypatch):
+        monkeypatch.setattr(pe, "on_gpu", lambda: True)
+        assert pe.choose_engine() == "pallas"
+        assert pe.choose_engine("pallas") == "pallas"
+        assert pe.choose_engine(anywhere=True) == "pallas"
+
+    def test_kernel_without_gpu_raises(self):
+        assert not pe.on_gpu()          # the CPU test platform
+        with pytest.raises(RuntimeError, match="GPU"):
+            pe.choose_engine("pallas")
+        with pytest.raises(RuntimeError, match="GPU"):
+            pe.choose_engine()
+        # the sprint builder enforces the same rule
+        p = P.small_test_params(num_water=64)
+        with pytest.raises(RuntimeError, match="GPU"):
+            pe.make_sprint_fn(p, 64)
+
+    @pytest.mark.parametrize("kwargs, want", [
+        (dict(requested="scan"), "scan"),
+        (dict(requested="pallas", interpret=True), "pallas"),
+        (dict(interpret=True), "pallas"),
+        (dict(anywhere=True), "scan"),
+    ])
+    def test_allowed_without_gpu(self, kwargs, want):
+        assert pe.choose_engine(**kwargs) == want
+
+    def test_explicit_kernel_request_is_not_rerouted(self):
+        # anywhere= only applies when no engine was asked for
+        with pytest.raises(RuntimeError, match="GPU"):
+            pe.choose_engine("pallas", anywhere=True)
+
+    def test_unknown_engine_rejected(self):
+        with pytest.raises(ValueError, match="unknown engine"):
+            pe.choose_engine("mosaic")
+
+    def test_cli_refuses_kernel_without_gpu(self, tmp_path):
+        from mri_nanoparticle_simulation_tpu.engine import sim
+        with pytest.raises(SystemExit):
+            sim.main(["--num-water", "32", "--num-cells", "8",
+                      "--totaltime", "0.002", "--sprint-steps", "1000",
+                      "--chunk-steps", "100", "--near-k", "6",
+                      "--taucp", "0.001", "--hash-dim", "8",
+                      "--out", str(tmp_path / "x.csv")])
+        assert not (tmp_path / "x.csv").exists()
+
+    def test_hardware_rng_refused(self):
+        with pytest.raises(ValueError, match="Threefry"):
+            pe.check_rng_impl("hardware")
+        p = P.small_test_params(num_water=64)
+        with pytest.raises(ValueError, match="Threefry"):
+            pe.make_sprint_fn(p, 64, rng_impl="hardware", interpret=True)
+
+
+class TestProgramBlocks:
+    """Walker padding and the split of walkers over kernel programs."""
+
+    @pytest.mark.parametrize("n", [1, 50, 127, 128, 129, 4032, 4200])
+    def test_pad_count(self, n):
+        wp = pe.pad_count(n)
+        assert n <= wp < n + pe.LANES
+        assert wp % pe.LANES == 0 and wp % pe.BLOCK_WALKERS == 0
+
+    def test_block_must_be_warp_multiple_dividing_lanes(self, monkeypatch):
+        p = P.small_test_params(num_water=64)
+        for bad in (16, 48, 256):
+            monkeypatch.setattr(pe, "BLOCK_WALKERS", bad)
+            with pytest.raises(ValueError, match="BLOCK_WALKERS"):
+                pe.make_chunk_kernel(p, 256, interpret=True)
+
+    def test_program_split_does_not_change_physics(self, monkeypatch):
+        """200 walkers (last plane partly filled) as 8 programs of 32 or
+        2 programs of 128: programs share nothing, so every output —
+        positions, phases and the per-program window sums added up by
+        XLA — must be identical."""
+        p = P.small_test_params(chunk_steps=100, print_interval=0.0001,
+                                num_water=200, totaltime=0.0002,
+                                sprint_steps=200)
+        sc = BacteriaBox(p, seed=3).populate()
+        runs = []
+        for bw in (32, 128):
+            monkeypatch.setattr(pe, "BLOCK_WALKERS", bw)
+            runs.append(pe.run_simulation(sc, p, seed=2, interpret=True))
+        (_, c1, s1, st1), (_, c2, s2, st2) = runs
+        np.testing.assert_array_equal(np.asarray(st1.pos),
+                                      np.asarray(st2.pos))
+        np.testing.assert_array_equal(np.asarray(st1.phase),
+                                      np.asarray(st2.phase))
+        np.testing.assert_allclose(c1, c2, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(s1, s2, rtol=0, atol=1e-4)
+
+
+class TestTritonLowering:
+    """Every kernel variant lowers through the Triton route for CUDA —
+    the step the card's compiler starts from — without a GPU present
+    (jax.export lowers for a platform other than the local one)."""
+
+    @pytest.mark.parametrize("physics", ["default", "reflect_intended"])
+    @pytest.mark.parametrize("decompose", [False, True])
+    def test_variant_lowers_for_cuda(self, physics, decompose):
+        from jax import export
+        p = P.small_test_params(num_water=256, near_k=4)
+        if physics == "reflect_intended":
+            # the 7-word draw: membrane coin + intended-kick uniform
+            p = p.with_permeability().replace(kick_mode=P.KICK_INTENDED)
+        wp = pe.pad_count(p.num_water)
+        kern = pe.make_chunk_kernel(p, wp, decompose=decompose)
+        n_state = 8 if decompose else 6
+        args = [jax.ShapeDtypeStruct((10,), jnp.uint32),
+                jax.ShapeDtypeStruct((n_state, wp), jnp.float32),
+                jax.ShapeDtypeStruct((4, p.near_k, wp), jnp.float32),
+                jax.ShapeDtypeStruct((10, wp), jnp.float32)]
+        exp = export.export(
+            jax.jit(kern), platforms=["cuda"],
+            disabled_checks=[export.DisabledSafetyCheck.custom_call(
+                "__gpu$xla.gpu.triton")])(*args)
+        text = exp.mlir_module()
+        assert "__gpu$xla.gpu.triton" in text
+        assert f"num_warps = {pe.BLOCK_WALKERS // 32}" in text

@@ -7,7 +7,6 @@ makes determinism testable.
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from mri_nanoparticle_simulation_tpu import rng
 
@@ -114,40 +113,3 @@ class TestDistributions:
             rng.words_for_step(key, 1, lane, 1)[0], jnp.float32))
         corr = np.corrcoef(u1, u2)[0, 1]
         assert abs(corr) < 0.02
-
-
-class TestFastNormalPair:
-    def test_matches_exact_formulas(self):
-        """Polynomial Box-Muller vs library formulas over dense uniforms."""
-        key = rng.key_from_seed(3)
-        lane = jnp.arange(200_000, dtype=jnp.uint32)
-        a, b = rng.words_for_step(key, 0, lane, 2)
-        n1, n2 = rng.fast_normal_pair(a, b)
-        ua = np.asarray(rng.uniform_from_bits(a, jnp.float64))
-        ub = np.asarray(rng.uniform_from_bits(b, jnp.float64))
-        r = np.sqrt(-2.0 * np.log(1.0 - ua))
-        exact1 = r * np.cos(2 * np.pi * ub)
-        exact2 = r * np.sin(2 * np.pi * ub)
-        np.testing.assert_allclose(np.asarray(n1, np.float64), exact1,
-                                   atol=1e-4)
-        np.testing.assert_allclose(np.asarray(n2, np.float64), exact2,
-                                   atol=1e-4)
-
-    def test_moments_and_independence(self):
-        key = rng.key_from_seed(9)
-        lane = jnp.arange(400_000, dtype=jnp.uint32)
-        a, b = rng.words_for_step(key, 1, lane, 2)
-        n1, n2 = (np.asarray(x) for x in rng.fast_normal_pair(a, b))
-        for n in (n1, n2):
-            assert abs(n.mean()) < 0.01
-            assert abs(n.std() - 1.0) < 0.01
-        assert abs(np.corrcoef(n1, n2)[0, 1]) < 0.01
-
-    def test_edge_bits(self):
-        """u_a = 0 (v = 1) must not produce NaN (poly can overshoot 0)."""
-        z = jnp.zeros((8,), jnp.uint32)
-        top = jnp.full((8,), 0xFFFFFFFF, jnp.uint32)
-        for bits in (z, top):
-            n1, n2 = rng.fast_normal_pair(bits, bits)
-            assert np.isfinite(np.asarray(n1)).all()
-            assert np.isfinite(np.asarray(n2)).all()
